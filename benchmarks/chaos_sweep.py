@@ -30,15 +30,15 @@ import traceback
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from audio_modem_radio_tpu.utils import jaxenv
+from audio_modem_radio.utils.runtime import configure_compile_cache
 
-jaxenv.honor_jax_platforms_env()
+configure_compile_cache()
 
 import numpy as np  # noqa: E402
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames  # noqa: E402
-from audio_modem_radio_tpu.modem import MODES, demodulate, modulate  # noqa: E402
-from audio_modem_radio_tpu.utils.wavio import resample  # noqa: E402
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames  # noqa: E402
+from audio_modem_radio.modem import MODES, demodulate, modulate  # noqa: E402
+from audio_modem_radio.utils.wavio import resample  # noqa: E402
 
 TEXT_MODES = ("HELLSCHREIBER", "FELD_HELL", "SLOW_HELL")
 
@@ -91,7 +91,7 @@ def run_seed(seed: int, trials: int, rng_factory=np.random.default_rng):
 
 def replay_ladder(lost):
     """Replay direct-path losses through the full decode_from_buffer ladder."""
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
+    from audio_modem_radio.decoder import decode_from_buffer
 
     cwd = os.getcwd()
     recovered, still = [], []

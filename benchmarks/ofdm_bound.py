@@ -43,14 +43,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from audio_modem_radio_tpu.utils.jaxenv import honor_jax_platforms_env  # noqa: E402
+from audio_modem_radio.utils.runtime import configure_compile_cache  # noqa: E402
 
-honor_jax_platforms_env()
+configure_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames  # noqa: E402
-from audio_modem_radio_tpu.ops import ofdm  # noqa: E402
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames  # noqa: E402
+from audio_modem_radio.ops import ofdm  # noqa: E402
 
 
 def _q(x: float) -> float:

@@ -50,12 +50,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from audio_modem_radio_tpu.utils.jaxenv import honor_jax_platforms_env  # noqa: E402
+from audio_modem_radio.utils.runtime import configure_compile_cache  # noqa: E402
 
-honor_jax_platforms_env()
+configure_compile_cache()
 
-from audio_modem_radio_tpu.ops import psk  # noqa: E402
-from audio_modem_radio_tpu.ops.common import bytes_to_bits  # noqa: E402
+from audio_modem_radio.ops import psk  # noqa: E402
+from audio_modem_radio.ops.common import bytes_to_bits  # noqa: E402
 
 
 def _q(x: np.ndarray) -> np.ndarray:

@@ -38,7 +38,7 @@ reference-generated captures and vice versa):
   in tests/test_ber_parity.py::test_tx_oracles_byte_exact_with_reference).
 
 This is an oracle for benchmarks only — nothing in the package imports it.
-The TPU receivers live in audio_modem_radio_tpu/ops/ and share no code or
+The receivers under test live in audio_modem_radio/ops/ and share no code or
 structure with this file.
 """
 
@@ -165,7 +165,7 @@ def hellschreiber_demodulate_ref(
     """Reference Hellschreiber receiver (hellschreiber.py:156-186): mean-square
     pixel energy threshold, then each consecutive 7-pixel group (LSB-first)
     matched against ANY row of any glyph — the reference's own naive scheme."""
-    from audio_modem_radio_tpu.ops.hell import char_map  # wire data only
+    from audio_modem_radio.ops.hell import char_map  # wire data only
 
     spp = int(round(samp_rate / baud))
     n_pix = len(samples) // spp
@@ -254,7 +254,7 @@ def hellschreiber_modulate_ref(
     text: str, baud: float = 122.5, carrier: float = 1000.0, samp_rate: int = 96000
 ) -> np.ndarray:
     """Reference Hellschreiber transmitter (hellschreiber.py:109-153)."""
-    from audio_modem_radio_tpu.ops.hell import char_map  # wire data only
+    from audio_modem_radio.ops.hell import char_map  # wire data only
 
     cm = char_map()
     pixels = [1] * (7 * 10)

@@ -1,9 +1,9 @@
-// amr_native: native runtime components for audio_modem_radio_tpu.
+// amr_native: native runtime components for audio_modem_radio.
 //
 // The reference implementation is pure Python (SURVEY.md §2: no native code
 // of its own); this library is the rebuild's host-runtime muscle for the
 // batch-decode path, where Python-level byte scanning and WAV parsing become
-// the bottleneck once the TPU demodulates gigabytes per second:
+// the bottleneck once the device demodulates gigabytes per second:
 //
 //  * amr_scan_frames  — scan a demodulated byte stream for FBPC frames
 //    (magic search + header sanity + CRC32 payload verification), returning
@@ -14,7 +14,7 @@
 //    host-side feeder for decode_wav_batch.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 -pthread amr_native.cpp -o libamr_native.so -lz
-// Exposed via ctypes (audio_modem_radio_tpu/native.py); plain C ABI.
+// Exposed via ctypes (audio_modem_radio/native.py); plain C ABI.
 
 #include <atomic>
 #include <cstdint>
@@ -214,8 +214,8 @@ void amr_load_wav_batch(const char** paths, int64_t n_files, float* out,
 // ---------------------------------------------------------------------------
 // Viterbi decoder for the K=7, rate-1/2 code (G1=0o171, G2=0o133) — the ACS
 // inner loop of fec.ViterbiDecoder. The 64-state trellis is a terrible fit
-// for the TPU (a 9216-step lax.scan over 64-lane vectors leaves the MXU
-// idle; a 512 KB guessed span once measured 259 s through the block-parallel
+// for an accelerator (a 9216-step lax.scan over 64-lane vectors leaves the
+// matrix units idle; a 512 KB guessed span once measured 259 s through the block-parallel
 // JAX path — decoder.py header-recovery cap), while one scalar C++ sweep
 // sustains >1 Mbit/s/core: header-tolerant recovery can afford multi-MB
 // candidate spans (decoder._MAX_FEC_VALIDATE rises 512 KB -> 4 MB when this

@@ -4,8 +4,8 @@ import time
 
 import pytest
 
-from audio_modem_radio_tpu.assembly import AssemblyRegistry, FileAssembly
-from audio_modem_radio_tpu.framing import Frame, crc32
+from audio_modem_radio.assembly import AssemblyRegistry, FileAssembly
+from audio_modem_radio.framing import Frame, crc32
 
 
 def _mk_frames(name: str, data: bytes, n_parts: int):
@@ -196,10 +196,10 @@ def test_journal_e2e_through_audio_restart(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     import numpy as np
 
-    from audio_modem_radio_tpu.config import CONFIG
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file_parts, split_file_for_transmission
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.config import CONFIG
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file_parts, split_file_for_transmission
+    from audio_modem_radio.utils.wavio import read_wav
 
     CONFIG.set("modem.assembly_journal", str(tmp_path / "recv" / ".assembly"))
     data = bytes(np.random.default_rng(5).integers(0, 256, 30_000, dtype=np.uint8))

@@ -5,12 +5,12 @@ import pytest
 
 import jax
 
-from audio_modem_radio_tpu.assembly import AssemblyRegistry
-from audio_modem_radio_tpu.encoder import encode_file, encode_file_parts, split_file_for_transmission
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import modulate
-from audio_modem_radio_tpu.parallel.batch import decode_sample_batch, decode_wav_batch
-from audio_modem_radio_tpu.parallel.mesh import get_mesh, get_2d_mesh, pad_batch
+from audio_modem_radio.assembly import AssemblyRegistry
+from audio_modem_radio.encoder import encode_file, encode_file_parts, split_file_for_transmission
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import modulate
+from audio_modem_radio.parallel.batch import decode_sample_batch, decode_wav_batch
+from audio_modem_radio.parallel.mesh import get_mesh, get_2d_mesh, pad_batch
 
 
 @pytest.fixture
@@ -91,9 +91,9 @@ def test_multipart_across_batch(workdir):
 def test_batch_path_fec_recovery_without_native(workdir, monkeypatch):
     """The pure-Python batch branch must surface damaged frames for FEC
     recovery exactly like the single-file path (VERDICT r1 weak #2)."""
-    import audio_modem_radio_tpu.native as native
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.wavio import read_wav, write_wav
+    import audio_modem_radio.native as native
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.wavio import read_wav, write_wav
 
     monkeypatch.setattr(native, "NATIVE_AVAILABLE", False)
 
@@ -141,7 +141,7 @@ def test_2d_mesh_shapes():
 def test_multihost_single_process_path(workdir):
     """Multi-host decode degenerates to the single-host pipeline on one
     process: identity partition, local mesh, same results."""
-    from audio_modem_radio_tpu.parallel.multihost import (
+    from audio_modem_radio.parallel.multihost import (
         decode_wav_batch_multihost,
         partition_files,
     )
@@ -169,10 +169,10 @@ def test_multihost_single_process_path(workdir):
 def test_decode_wav_batch_survives_corrupt_wav(tmp_path, monkeypatch, rng):
     """Round 3 (review fix): one unreadable WAV in the batch must not lose
     the other captures — it decodes to nothing, everything else decodes."""
-    import audio_modem_radio_tpu as amr
-    from audio_modem_radio_tpu.framing import crc32, pack_frame
-    from audio_modem_radio_tpu.parallel.batch import decode_wav_batch
-    from audio_modem_radio_tpu.utils.wavio import write_wav
+    import audio_modem_radio as amr
+    from audio_modem_radio.framing import crc32, pack_frame
+    from audio_modem_radio.parallel.batch import decode_wav_batch
+    from audio_modem_radio.utils.wavio import write_wav
 
     monkeypatch.chdir(tmp_path)
     paths, pays = [], []
@@ -199,7 +199,7 @@ def test_overlap_rows_property():
     """_overlap_rows == the naive pad-then-slice construction for random
     geometry, including lead offsets and ov == row (hypothesis-style sweep;
     the helper now feeds the FSK dual-tone, FSK FIR and OFDM shaping)."""
-    from audio_modem_radio_tpu.parallel.batch import _overlap_rows
+    from audio_modem_radio.parallel.batch import _overlap_rows
 
     rng = np.random.default_rng(5)
     for _ in range(40):
@@ -252,7 +252,7 @@ def test_batch_fractional_symbol_lead(mode, rate, rng):
     for i, w in enumerate(waves):
         batch[i, : len(w)] = w
 
-    from audio_modem_radio_tpu.parallel.batch import demod_pack_batch
+    from audio_modem_radio.parallel.batch import demod_pack_batch
 
     packed, n_valid, _found = demod_pack_batch(batch, mode, rate)  # flat path
     packed, n_valid = np.asarray(packed), np.asarray(n_valid)

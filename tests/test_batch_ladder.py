@@ -11,12 +11,12 @@ single path does (reference retry semantics: /root/reference/decoder.py:313-377)
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.assembly import AssemblyRegistry
-from audio_modem_radio_tpu.decoder import decode_from_buffer, decode_with_retry
-from audio_modem_radio_tpu.encoder import encode_file
-from audio_modem_radio_tpu.parallel.batch import decode_wav_batch
-from audio_modem_radio_tpu.parallel.mesh import get_mesh
-from audio_modem_radio_tpu.utils.wavio import read_wav, write_wav
+from audio_modem_radio.assembly import AssemblyRegistry
+from audio_modem_radio.decoder import decode_from_buffer, decode_with_retry
+from audio_modem_radio.encoder import encode_file
+from audio_modem_radio.parallel.batch import decode_wav_batch
+from audio_modem_radio.parallel.mesh import get_mesh
+from audio_modem_radio.utils.wavio import read_wav, write_wav
 
 
 @pytest.fixture
@@ -46,10 +46,10 @@ def _sync_killed_capture(content: bytes, symbol_rate: int) -> np.ndarray:
     FEC-tag anchor can recover the frame."""
     import zlib
 
-    from audio_modem_radio_tpu.fec import wrap_fec
-    from audio_modem_radio_tpu.framing import crc32, pack_frame
-    from audio_modem_radio_tpu.modem import modulate
-    from audio_modem_radio_tpu.utils.compression import TAG_ZLIB
+    from audio_modem_radio.fec import wrap_fec
+    from audio_modem_radio.framing import crc32, pack_frame
+    from audio_modem_radio.modem import modulate
+    from audio_modem_radio.utils.compression import TAG_ZLIB
 
     payload = wrap_fec(TAG_ZLIB + zlib.compress(content, 9), "convolutional")
     framed = bytearray(
@@ -166,9 +166,9 @@ def test_batch_fsk_mlse_escalation(workdir):
     equalizer fails and MLSE succeeds; a healthy capture rides along to pin
     that escalation re-dispatches ONLY the failed rows.
     """
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-    from audio_modem_radio_tpu.modem import modulate
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.modem import modulate
+    from audio_modem_radio.parallel.batch import decode_sample_batch
 
     rate = 9600
     data = np.random.default_rng(5).integers(0, 256, 300, dtype=np.uint8).tobytes()
@@ -209,10 +209,10 @@ def test_batch_psk_coherent_escalation(workdir):
     batch's differential parse finds nothing, exactly like the single-file
     mode ladder. Pinned by config toggle: with the escalation disabled the
     batch loses the capture; with the default it recovers bit-exact."""
-    from audio_modem_radio_tpu.config import CONFIG
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-    from audio_modem_radio_tpu.modem import modulate
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
+    from audio_modem_radio.config import CONFIG
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.modem import modulate
+    from audio_modem_radio.parallel.batch import decode_sample_batch
 
     rate = 4800
     data = np.random.default_rng(3).integers(0, 256, 512, dtype=np.uint8).tobytes()

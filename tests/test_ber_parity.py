@@ -18,7 +18,7 @@ REFERENCE_DIR = "/root/reference"
 
 
 def _framed(payload: bytes) -> bytes:
-    from audio_modem_radio_tpu.framing import crc32, pack_frame
+    from audio_modem_radio.framing import crc32, pack_frame
 
     return pack_frame("p.bin", payload, 0, 1, len(payload), crc32(payload))
 
@@ -58,7 +58,7 @@ def test_ours_at_least_as_good_as_reference_cell():
     from ber_parity import _ber
     from reference_oracle import fsk_demodulate_ref
 
-    from audio_modem_radio_tpu.ops.fsk import fsk_demodulate, fsk_modulate
+    from audio_modem_radio.ops.fsk import fsk_demodulate, fsk_modulate
 
     rng = np.random.default_rng(7)
     framed = _framed(rng.integers(0, 256, 300, dtype=np.uint8).tobytes())
@@ -135,8 +135,8 @@ def test_interop_our_rx_decodes_reference_wire():
     surfaces (reference modem.py:345-348, 380-383)."""
     from reference_oracle import bpsk_modulate_ref, qpsk_modulate_ref
 
-    from audio_modem_radio_tpu.framing import parse_frames
-    from audio_modem_radio_tpu.modem import (
+    from audio_modem_radio.framing import parse_frames
+    from audio_modem_radio.modem import (
         _dsss_mode_demodulate,
         _psk8_mode_demodulate,
         bpsk_demodulate,

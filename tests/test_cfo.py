@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 from scipy.signal import hilbert
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.ops.psk import (
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
     estimate_cfo,
@@ -59,8 +59,8 @@ def test_cfo_estimate_accuracy(df, rng):
 
 def test_cfo_batch_path(rng):
     """The batched fast path decodes frequency-shifted captures too."""
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
-    from audio_modem_radio_tpu.parallel.mesh import get_mesh
+    from audio_modem_radio.parallel.batch import decode_sample_batch
+    from audio_modem_radio.parallel.mesh import get_mesh
 
     # Registry QPSK uses carrier 3000 Hz; keep shifts narrowband there.
     shifts = [0.0, 30.0, 60.0, 120.0]

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from audio_modem_radio_tpu.cli import main
+from audio_modem_radio.cli import main
 
 
 @pytest.fixture
@@ -32,7 +32,7 @@ def test_encode_decode_via_cli(workdir, capsys):
 def test_decode_failure_exit_code(workdir, capsys, rng):
     import numpy as np
 
-    from audio_modem_radio_tpu.utils.wavio import write_wav
+    from audio_modem_radio.utils.wavio import write_wav
 
     noise = rng.normal(0, 0.2, 48000).astype(np.float32)
     write_wav(str(workdir / "noise.wav"), noise)

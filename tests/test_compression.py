@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.utils.compression import (
+from audio_modem_radio.utils.compression import (
     IntelligentCompressor,
     adaptive_compress,
     compress_data,

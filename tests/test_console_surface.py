@@ -4,7 +4,7 @@ plumbing, streaming flush safety."""
 
 import numpy as np
 
-from audio_modem_radio_tpu.diagrams import (
+from audio_modem_radio.diagrams import (
     ascii_constellation,
     ascii_oscillogram,
     mode_diagram,
@@ -12,7 +12,7 @@ from audio_modem_radio_tpu.diagrams import (
 
 
 def test_mode_diagrams_render_for_every_mode():
-    from audio_modem_radio_tpu.modem import MODES
+    from audio_modem_radio.modem import MODES
 
     for name in MODES:
         d = mode_diagram(name, 2400)
@@ -42,7 +42,7 @@ def test_constellation_labels():
 
 def test_playlist_persists_across_sessions(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.app import ConsoleApp
+    from audio_modem_radio.app import ConsoleApp
 
     app = ConsoleApp()
     app.playlist = ["x.wav", "y.wav"]
@@ -57,7 +57,7 @@ def test_playlist_persists_across_sessions(tmp_path, monkeypatch):
 def test_recorder_drain_is_continuous():
     """drain() must hand over buffered blocks without stopping the stream
     (the stop()/start() loop loses the audio between the calls)."""
-    from audio_modem_radio_tpu.audio_io import Recorder
+    from audio_modem_radio.audio_io import Recorder
 
     rec = Recorder()
     blk = np.ones((100, 1), np.float32)
@@ -71,7 +71,7 @@ def test_recorder_drain_is_continuous():
 
 
 def test_recorder_volume_callback():
-    from audio_modem_radio_tpu.audio_io import Recorder
+    from audio_modem_radio.audio_io import Recorder
 
     rec = Recorder()
     levels = []
@@ -81,8 +81,8 @@ def test_recorder_volume_callback():
 
 
 def test_file_recorder_drain_once(tmp_path):
-    from audio_modem_radio_tpu.audio_io import FileRecorder
-    from audio_modem_radio_tpu.utils.wavio import write_wav
+    from audio_modem_radio.audio_io import FileRecorder
+    from audio_modem_radio.utils.wavio import write_wav
 
     p = str(tmp_path / "x.wav")
     write_wav(p, np.ones(1000, np.float32) * 0.5, 96000)
@@ -94,10 +94,10 @@ def test_file_recorder_drain_once(tmp_path):
 def test_streaming_flush_never_discards(tmp_path, monkeypatch, rng):
     """flush() after a huge final chunk decodes everything in the buffer."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.framing import crc32, pack_frame
-    from audio_modem_radio_tpu.modem import modulate
-    from audio_modem_radio_tpu.streaming import StreamingDecoder
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.framing import crc32, pack_frame
+    from audio_modem_radio.modem import modulate
+    from audio_modem_radio.streaming import StreamingDecoder
 
     payload = rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
     framed = pack_frame("s.bin", payload, 0, 1, len(payload), crc32(payload))
@@ -115,7 +115,7 @@ def test_streaming_flush_never_discards(tmp_path, monkeypatch, rng):
 def test_tui_render_functions():
     """The TUI's pure render layer covers every reference GUI affordance
     without needing a terminal."""
-    from audio_modem_radio_tpu.tui import (
+    from audio_modem_radio.tui import (
         AppState,
         render_screen,
         render_volume_bar,
@@ -160,7 +160,7 @@ def test_run_exits_on_eof(monkeypatch, tmp_path, capsys):
     """Closed stdin must exit the REPL like 'quit', not busy-loop on the
     empty default (regression: piping empty input spun forever)."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.app import ConsoleApp
+    from audio_modem_radio.app import ConsoleApp
 
     def eof_input(prompt=""):
         raise EOFError

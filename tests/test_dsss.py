@@ -8,10 +8,10 @@ where the alias's physical layer is long dead. Alias interop is kept behind
 
 import numpy as np
 
-import audio_modem_radio_tpu as amr
-from audio_modem_radio_tpu.config import CONFIG
-from audio_modem_radio_tpu.framing import crc32
-from audio_modem_radio_tpu.ops.dsss import (
+import audio_modem_radio as amr
+from audio_modem_radio.config import CONFIG
+from audio_modem_radio.framing import crc32
+from audio_modem_radio.ops.dsss import (
     SPREAD,
     _PN_BITS,
     _PN_SIGN,
@@ -76,7 +76,7 @@ def test_dsss_processing_gain_below_noise_floor():
     wb = np.asarray(amr.modulate("BPSK", framed, 9600), np.float32)
     pb = float(np.mean(wb**2))
     nb = wb + rng.normal(0, np.sqrt(pb / 10**-0.6), len(wb)).astype(np.float32)
-    from audio_modem_radio_tpu.modem import bpsk_demodulate
+    from audio_modem_radio.modem import bpsk_demodulate
 
     assert amr.parse_frames(bpsk_demodulate(nb, 9600, 3000.0, 96000)) == []
 
@@ -117,7 +117,7 @@ def test_registry_real_by_default_and_alias_fallback():
 def test_dsss_batched_decode():
     payload, framed = _framed(100, name="bd.bin")
     wave = np.asarray(amr.modulate("DSSS", framed, 9600), np.float32)
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
+    from audio_modem_radio.parallel.batch import decode_sample_batch
 
     n = 1 << 21
     batch = np.zeros((2, n), np.float32)
@@ -133,7 +133,7 @@ def test_dsss_batched_decode():
 def test_dsss_magic_damage_rescue_e2e(tmp_path):
     """2 corrupted magic bits through real spread audio recover bit-exact
     via the no-sync rescue ladder."""
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
+    from audio_modem_radio.decoder import decode_from_buffer
 
     payload, framed = _framed(100, name="hd.bin")
     bad = bytearray(framed)
@@ -146,8 +146,8 @@ def test_dsss_magic_damage_rescue_e2e(tmp_path):
 
 
 def test_dsss_encode_decode_pipeline(tmp_path):
-    from audio_modem_radio_tpu.decoder import decode_wav_file
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.decoder import decode_wav_file
+    from audio_modem_radio.encoder import encode_file
 
     payload = RNG.integers(0, 256, 512, dtype=np.uint8).tobytes()
     src = tmp_path / "docd.bin"
@@ -163,7 +163,7 @@ def test_despread_batch_matches_single():
     zero-padded tail groups past the capture)."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops.dsss import _despread_all, _despread_all_batch
+    from audio_modem_radio.ops.dsss import _despread_all, _despread_all_batch
 
     rng = np.random.default_rng(77)
     for n in (16 * 40, 16 * 40 + 7):  # exact and ragged chip counts
@@ -179,7 +179,7 @@ def test_despread_batch_matches_single():
 def test_dsss_batched_preshaped_rows_decode():
     """The host row-shaping path (blocked (B, r, 128*spchip) f32 rows) feeds
     the batched DSSS front end directly — same frames out as flat input."""
-    from audio_modem_radio_tpu.parallel.batch import demod_pack_batch, host_shape_batch
+    from audio_modem_radio.parallel.batch import demod_pack_batch, host_shape_batch
 
     payload, framed = _framed(80, name="rows.bin")
     wave = np.asarray(amr.modulate("DSSS", framed, 9600), np.float32)
@@ -203,7 +203,7 @@ def test_dsss_batch_shorter_than_one_spread_group():
     import jax.numpy as jnp
     import numpy as np
 
-    from audio_modem_radio_tpu.ops.dsss import SPREAD, _despread_all_batch
+    from audio_modem_radio.ops.dsss import SPREAD, _despread_all_batch
 
     x = jnp.asarray(np.random.default_rng(0).normal(size=(3, SPREAD - 1)), jnp.float32)
     rows = _despread_all_batch(x)

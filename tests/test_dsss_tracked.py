@@ -13,9 +13,9 @@ Reference anchor: the reference's "DSSS" is an unspread DBPSK alias
 
 import numpy as np
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import demodulate, modulate
-from audio_modem_radio_tpu.ops import dsss
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import demodulate, modulate
+from audio_modem_radio.ops import dsss
 
 BAUD, CARRIER, SR = 4800, 3000.0, 96000
 
@@ -66,7 +66,7 @@ def test_mode_level_escalation():
     """modem's DSSS receive escalates to the despread-stream tracker when
     differential detection finds no complete capture — and only when the
     shared psk_coherent_escalation flag allows."""
-    from audio_modem_radio_tpu.config import CONFIG
+    from audio_modem_radio.config import CONFIG
 
     payload, framed = _frame()
     wave = np.asarray(modulate("DSSS", framed, BAUD), np.float32)

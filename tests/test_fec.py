@@ -4,7 +4,7 @@ and end-to-end recovery of bit-error-damaged frames."""
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.fec import (
+from audio_modem_radio.fec import (
     ConvolutionalEncoder,
     ReedSolomonFEC,
     ViterbiDecoder,
@@ -103,11 +103,11 @@ def test_wrap_unwrap(fec_type, rng):
 
 def test_damaged_frame_recovered_by_viterbi(tmp_path, monkeypatch, rng):
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.modem import MODES
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.modem import MODES
+    from audio_modem_radio.utils.wavio import read_wav
 
     content = b"precious payload that must survive bit errors " * 20
     src = tmp_path / "x.bin"
@@ -138,8 +138,8 @@ def test_damaged_frame_recovered_by_viterbi(tmp_path, monkeypatch, rng):
 # --- stream-level FEC ----------------------------------------------------------
 
 def test_stream_fec_codec_roundtrip(rng):
-    from audio_modem_radio_tpu.fec import stream_fec_decode, stream_fec_encode
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.fec import stream_fec_decode, stream_fec_encode
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
 
     data = rng.integers(0, 256, 900, dtype=np.uint8).tobytes()
     framed = pack_frame("s.bin", data, 0, 1, len(data), crc32(data))
@@ -167,8 +167,8 @@ def test_stream_fec_five_minute_capture_no_truncation(rng):
     scan length is independent of capture size, so the cap is gone: the
     decode must recover the final payload bytes, which live past the old cap.
     """
-    from audio_modem_radio_tpu.fec import stream_fec_decode, stream_fec_encode
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.fec import stream_fec_decode, stream_fec_encode
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
 
     payload = rng.integers(0, 256, 350_000, dtype=np.uint8).tobytes()
     framed = pack_frame("long.bin", payload, 0, 1, len(payload), crc32(payload))
@@ -182,10 +182,10 @@ def test_stream_fec_protects_header(tmp_path, monkeypatch, rng):
     """A burst over the frame HEADER region kills payload-only FEC but not
     stream FEC (the whole frame, magic and header included, is coded)."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.wavio import read_wav
 
     data = rng.integers(0, 256, 2000, dtype=np.uint8).tobytes()
     src = tmp_path / "f.bin"
@@ -228,10 +228,10 @@ def test_stream_fec_protects_header(tmp_path, monkeypatch, rng):
 
 def test_stream_fec_with_leading_noise(tmp_path, monkeypatch, rng):
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.wavio import read_wav
 
     data = rng.integers(0, 256, 1500, dtype=np.uint8).tobytes()
     src = tmp_path / "f.bin"
@@ -249,8 +249,8 @@ def test_stream_fec_multi_segment_capture(rng):
     """Two back-to-back stream-FEC transmissions in ONE capture both decode
     (segments are delimited by their plaintext sync magics and Viterbi-
     decoded independently)."""
-    from audio_modem_radio_tpu.fec import stream_fec_decode, stream_fec_encode
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.fec import stream_fec_decode, stream_fec_encode
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
 
     payloads = [rng.integers(0, 256, 700, dtype=np.uint8).tobytes() for _ in range(2)]
     coded = b"".join(
@@ -267,14 +267,14 @@ def test_soft_stream_fec_beats_hard(tmp_path, monkeypatch, rng):
     (measured: hard dies below -1 dB full-band SNR on this config, soft
     holds to -3 dB)."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.decoder import pad_to_bucket
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.fec import stream_fec_decode, stream_fec_decode_soft
-    from audio_modem_radio_tpu.framing import parse_frames
-    from audio_modem_radio_tpu.modem import demodulate
-    from audio_modem_radio_tpu.ops.psk import psk_soft_bits
-    from audio_modem_radio_tpu.utils.compression import intelligent_decompress
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.decoder import pad_to_bucket
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.fec import stream_fec_decode, stream_fec_decode_soft
+    from audio_modem_radio.framing import parse_frames
+    from audio_modem_radio.modem import demodulate
+    from audio_modem_radio.ops.psk import psk_soft_bits
+    from audio_modem_radio.utils.compression import intelligent_decompress
+    from audio_modem_radio.utils.wavio import read_wav
 
     data = rng.integers(0, 256, 1200, dtype=np.uint8).tobytes()
     src = tmp_path / "s.bin"
@@ -311,10 +311,10 @@ def test_stream_fec_soft_escalation_in_decoder(tmp_path, monkeypatch, rng):
     """decode_from_buffer(stream_fec=True) escalates to the soft path when
     the hard decode yields nothing."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.wavio import read_wav
 
     data = rng.integers(0, 256, 1200, dtype=np.uint8).tobytes()
     src = tmp_path / "s.bin"
@@ -345,11 +345,11 @@ def test_soft_payload_fec_recovers_damaged_fecv(tmp_path, monkeypatch, rng):
     enough that hard FEC succeeds, so the escalation is pinned OFF here:
     this fixture tests the soft-FEC rung, not the tracked receiver (which
     has its own tests in test_psk8_tracked.py)."""
-    import audio_modem_radio_tpu as amr
-    from audio_modem_radio_tpu.config import CONFIG
-    from audio_modem_radio_tpu.decoder import decode_from_buffer, recover_payload_fec_soft
-    from audio_modem_radio_tpu.fec import unwrap_fec, wrap_fec
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames_detailed
+    import audio_modem_radio as amr
+    from audio_modem_radio.config import CONFIG
+    from audio_modem_radio.decoder import decode_from_buffer, recover_payload_fec_soft
+    from audio_modem_radio.fec import unwrap_fec, wrap_fec
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames_detailed
 
     monkeypatch.chdir(tmp_path)
     data = np.random.default_rng(0).integers(0, 256, 1200, dtype=np.uint8).tobytes()
@@ -369,7 +369,7 @@ def test_soft_payload_fec_recovers_damaged_fecv(tmp_path, monkeypatch, rng):
         rec = recover_payload_fec_soft(raw, noisy, "QPSK", 9600, damaged)
         assert rec and unwrap_fec(rec[0].data) == data
 
-        from audio_modem_radio_tpu.assembly import AssemblyRegistry
+        from audio_modem_radio.assembly import AssemblyRegistry
 
         reg = AssemblyRegistry()
         saved = decode_from_buffer(noisy, "QPSK", 9600,
@@ -389,11 +389,11 @@ def test_soft_payload_fec_works_on_ofdm(rng):
     per-subcarrier coherent escalation heals this fixture's frame outright,
     so it is pinned OFF — the soft rung (not the tracker, which has its own
     tests in test_ofdm_tracked.py) is under test here."""
-    import audio_modem_radio_tpu as amr
-    from audio_modem_radio_tpu.config import CONFIG
-    from audio_modem_radio_tpu.decoder import recover_payload_fec_soft
-    from audio_modem_radio_tpu.fec import unwrap_fec, wrap_fec
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames_detailed
+    import audio_modem_radio as amr
+    from audio_modem_radio.config import CONFIG
+    from audio_modem_radio.decoder import recover_payload_fec_soft
+    from audio_modem_radio.fec import unwrap_fec, wrap_fec
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames_detailed
 
     data = np.random.default_rng(0).integers(0, 256, 1200, dtype=np.uint8).tobytes()
     container = wrap_fec(data, "convolutional")

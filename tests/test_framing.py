@@ -4,7 +4,7 @@ import struct
 
 import pytest
 
-from audio_modem_radio_tpu.framing import (
+from audio_modem_radio.framing import (
     MAGIC,
     Frame,
     crc32,
@@ -102,8 +102,8 @@ def test_absurd_total_parts_rejected_everywhere(rng):
     reach the assembly layer (it once drove a ~8 GB [None]*total allocation):
     the parser bounds it (MAX_PARTS), and AssemblyRegistry.offer rejects it
     outright as defense in depth."""
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.framing import (
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.framing import (
         MAX_PARTS, Frame, crc32, pack_frame, parse_frames_detailed,
     )
 

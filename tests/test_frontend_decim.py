@@ -9,7 +9,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from audio_modem_radio_tpu.ops.common import (
+from audio_modem_radio.ops.common import (
     _analytic_fir_taps,
     analytic_bandpass,
     analytic_bandpass_fir,
@@ -61,7 +61,7 @@ def test_analytic_decimation_rejects_aliasing_band():
 
 
 def test_fsk_pre_shaped_rows_match_flat():
-    from audio_modem_radio_tpu.ops.fsk import (
+    from audio_modem_radio.ops.fsk import (
         fsk_blocked_row_shape,
         fsk_demod_bits,
         fsk_modulate,
@@ -88,8 +88,8 @@ def test_fsk_pre_shaped_rows_match_flat():
 def test_fsk9600_discriminator_decimation_active_and_exact():
     # The production FSK9600 config decimates by 2 and must still decode
     # clean captures bit-exactly through the equalizer path (mlse=False).
-    from audio_modem_radio_tpu.ops.common import bytes_to_bits
-    from audio_modem_radio_tpu.ops.fsk import (
+    from audio_modem_radio.ops.common import bytes_to_bits
+    from audio_modem_radio.ops.fsk import (
         FSK_PREAMBLE,
         _discriminator_decimation,
         fsk_demod_bits,
@@ -107,7 +107,7 @@ def test_fsk9600_discriminator_decimation_active_and_exact():
 
 
 def test_blocked_viterbi_matches_sequential_long_stream():
-    from audio_modem_radio_tpu.fec import (
+    from audio_modem_radio.fec import (
         _VIT_CORE,
         _VIT_OV,
         ConvolutionalEncoder,
@@ -136,8 +136,8 @@ def test_blocked_viterbi_matches_sequential_long_stream():
 
 
 def test_stream_fec_long_payload_roundtrip():
-    from audio_modem_radio_tpu.fec import stream_fec_decode, stream_fec_encode
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.fec import stream_fec_decode, stream_fec_encode
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
 
     rng = np.random.default_rng(6)
     payload = rng.integers(0, 256, 120000, dtype=np.uint8).tobytes()
@@ -150,13 +150,13 @@ def test_stream_fec_long_payload_roundtrip():
 
 # --- round 3: decimating matmul FIR front end -------------------------------
 
-from audio_modem_radio_tpu.ops.common import analytic_bandpass_fir_dec
+from audio_modem_radio.ops.common import analytic_bandpass_fir_dec
 
 
 @pytest.mark.parametrize("dec,taps", [(1, 129), (2, 257), (4, 513)])
 def test_matmul_fir_dec_equals_strided_fir(dec, taps):
     """analytic_bandpass_fir_dec == analytic_bandpass_fir(x)[::dec] exactly
-    (same kernel, decimating convolution folded into one MXU matmul)."""
+    (same taps, decimating convolution folded into one matmul)."""
     rng = np.random.default_rng(7)
     n = 50_000 + 37  # deliberately not a row multiple
     x = rng.standard_normal(n).astype(np.float32)
@@ -189,13 +189,11 @@ def test_matmul_fir_dec_geometry_guard():
     [(9600, 1200.0, 2200.0), (19200, 8000.0, 16000.0), (1200, 1200.0, 2200.0)],
 )
 def test_fsk_matmul_frontend_roundtrip_all_families(baud, mark, space):
-    """The production default frontend='matmul' (round 3: rfft was 76% of the
-    FSK9600 pipeline; the matmul front end measured 8.19 vs 2.12 GS/s end to
-    end on v5e) decodes bit-exact on clean audio in every FSK family, and
+    """The production default frontend='matmul' decodes bit-exact on clean audio in every FSK family, and
     agrees with the fft front end."""
-    from audio_modem_radio_tpu.framing import crc32, pack_frame
-    from audio_modem_radio_tpu.ops.common import bytes_to_bits
-    from audio_modem_radio_tpu.ops.fsk import FSK_PREAMBLE, fsk_demod_bits, fsk_modulate
+    from audio_modem_radio.framing import crc32, pack_frame
+    from audio_modem_radio.ops.common import bytes_to_bits
+    from audio_modem_radio.ops.fsk import FSK_PREAMBLE, fsk_demod_bits, fsk_modulate
 
     rng = np.random.default_rng(11)
     payload = rng.integers(0, 256, 1500, dtype=np.uint8).tobytes()
@@ -222,12 +220,12 @@ def test_fsk_fir_pre_shaped_rows_match_flat(baud, mark, space):
     flat path (same windows, same template, same op order) for both the
     discriminator (FSK9600, dec=4) and the mid-separation matched filter
     (FSK19200, dec=1)."""
-    from audio_modem_radio_tpu.ops.fsk import (
+    from audio_modem_radio.ops.fsk import (
         fsk_demod_bits,
         fsk_fir_row_shape,
         fsk_modulate,
     )
-    from audio_modem_radio_tpu.parallel.batch import _overlap_rows
+    from audio_modem_radio.parallel.batch import _overlap_rows
 
     rng = np.random.default_rng(11)
     payload = rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
@@ -252,7 +250,7 @@ def test_fsk_fir_pre_shaped_rows_match_flat(baud, mark, space):
 
 
 def test_fsk_fir_pre_shaped_rejects_mlse_and_dual_tone():
-    from audio_modem_radio_tpu.ops.fsk import fsk_demod_bits, fsk_fir_row_shape
+    from audio_modem_radio.ops.fsk import fsk_demod_bits, fsk_fir_row_shape
 
     # Dual-tone configs have no FIR-row geometry (detector rows cover them).
     assert fsk_fir_row_shape(96000, 1200.0, 1200.0, 2200.0, 96000) is None

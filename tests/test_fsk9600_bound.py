@@ -17,8 +17,8 @@ Reference anchor: /root/reference/config.py mark/space defaults;
 import numpy as np
 import jax.numpy as jnp
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame
-from audio_modem_radio_tpu.ops import fsk
+from audio_modem_radio.framing import crc32, pack_frame
+from audio_modem_radio.ops import fsk
 
 SR, BAUD, MARK, SPACE = 96000, 9600.0, 1200.0, 2200.0
 SPB = 10

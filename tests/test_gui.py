@@ -13,8 +13,8 @@ import time
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.gui import GuiViewModel, mode_diagram_primitives
-from audio_modem_radio_tpu.modem import MODES
+from audio_modem_radio.gui import GuiViewModel, mode_diagram_primitives
+from audio_modem_radio.modem import MODES
 
 
 def _drain(vm, kinds=None, timeout=120.0):
@@ -107,8 +107,8 @@ def test_encode_then_decode_roundtrip(vm, tmp_path):
 def test_record_with_file_recorder(vm, tmp_path):
     """Live-capture workflow against the deterministic fake backend, with
     level events like the reference volume meter."""
-    from audio_modem_radio_tpu.audio_io import FileRecorder
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.audio_io import FileRecorder
+    from audio_modem_radio.encoder import encode_file
 
     src = tmp_path / "cap.bin"
     src.write_bytes(b"captured payload!" * 5)
@@ -206,7 +206,7 @@ def test_stats_surfaces(vm):
 def test_window_smoke(vm):
     import tkinter
 
-    from audio_modem_radio_tpu.gui import FileBeepWindow
+    from audio_modem_radio.gui import FileBeepWindow
 
     try:
         window = FileBeepWindow(vm=vm)
@@ -222,8 +222,8 @@ def test_window_smoke(vm):
 def test_monitor_streams_files_live(vm, tmp_path):
     """The monitor workflow surfaces files as frames complete (continuous
     StreamingDecoder drain; the reference can only one-shot 30 s windows)."""
-    from audio_modem_radio_tpu.audio_io import FileRecorder
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.audio_io import FileRecorder
+    from audio_modem_radio.encoder import encode_file
 
     src = tmp_path / "live.bin"
     src.write_bytes(b"monitored payload " * 8)

@@ -9,9 +9,9 @@ import zlib
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.decoder import decode_from_buffer, recover_header_damaged
-from audio_modem_radio_tpu.fec import wrap_fec
-from audio_modem_radio_tpu.framing import (
+from audio_modem_radio.decoder import decode_from_buffer, recover_header_damaged
+from audio_modem_radio.fec import wrap_fec
+from audio_modem_radio.framing import (
     MAGIC,
     crc32,
     fuzzy_magic_positions,
@@ -19,8 +19,8 @@ from audio_modem_radio_tpu.framing import (
     parse_frames_detailed,
     scan_frame_candidates,
 )
-from audio_modem_radio_tpu.modem import modulate
-from audio_modem_radio_tpu.utils.compression import TAG_ZLIB
+from audio_modem_radio.modem import modulate
+from audio_modem_radio.utils.compression import TAG_ZLIB
 
 
 def _flip_bit(buf: bytes, byte_idx: int, bit: int = 0) -> bytes:
@@ -107,7 +107,7 @@ def test_dlen_and_pcrc_corruption_fcrc_ladder():
     frames, damaged, rec = _recover(raw)
     assert not frames
     assert len(rec) == 1
-    from audio_modem_radio_tpu.utils.compression import intelligent_decompress
+    from audio_modem_radio.utils.compression import intelligent_decompress
 
     assert intelligent_decompress(rec[0].data) == data
 
@@ -133,7 +133,7 @@ def test_candidate_scan_caps():
 
 def test_retry_path_uses_recovery(tmp_path):
     """decode_with_retry applies the same recovery ladder per attempt."""
-    from audio_modem_radio_tpu.decoder import decode_with_retry
+    from audio_modem_radio.decoder import decode_with_retry
 
     framed, data, payload = _make_framed(seed=9, n=400)
     corrupted = _flip_bit(framed, 2, 1)  # magic byte 3 (outside sync bits)
@@ -171,7 +171,7 @@ def test_random_corruption_never_emits_wrong_content(rng):
     """Property: under arbitrary random corruption, recovery either emits
     nothing or emits a frame whose content provably matches the original —
     the validation ladder is cryptographic, not heuristic."""
-    from audio_modem_radio_tpu.utils.compression import intelligent_decompress
+    from audio_modem_radio.utils.compression import intelligent_decompress
 
     framed, data, payload = _make_framed(seed=11, n=500)
     master = np.random.default_rng(99)
@@ -188,7 +188,7 @@ def test_random_corruption_never_emits_wrong_content(rng):
         for f in rec:
             emitted += 1
             final = intelligent_decompress(
-                __import__("audio_modem_radio_tpu.decoder", fromlist=["_defec"])._defec(f.data)
+                __import__("audio_modem_radio.decoder", fromlist=["_defec"])._defec(f.data)
             )
             assert final == data, f"trial {trial}: wrong recovered content"
     assert emitted >= 5  # the ladder must actually recover a decent fraction
@@ -241,7 +241,7 @@ def test_multi_mb_fec_part_recovers_within_budget():
     the old 512 KB _MAX_FEC_VALIDATE cap skipped any such span outright."""
     import time
 
-    from audio_modem_radio_tpu import native
+    from audio_modem_radio import native
 
     if not native.viterbi_available():
         pytest.skip("native Viterbi unavailable (no compiler); cap stays 512 KB")

@@ -12,16 +12,16 @@ text modes (reference wire format: /root/reference/hellschreiber.py:109-186).
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.decoder import decode_from_buffer
-from audio_modem_radio_tpu.ops.hell import (
+from audio_modem_radio.decoder import decode_from_buffer
+from audio_modem_radio.ops.hell import (
     hellschreiber_demodulate,
     hellschreiber_demodulate_batch,
     hellschreiber_modulate,
 )
-from audio_modem_radio_tpu.parallel.batch import decode_wav_batch
-from audio_modem_radio_tpu.utils.wavio import write_wav
+from audio_modem_radio.parallel.batch import decode_wav_batch
+from audio_modem_radio.utils.wavio import write_wav
 
-TEXTS = ["HELLO TPU 123", "CQ CQ DE PY2ABC", "the quick brown fox?!"]
+TEXTS = ["HELLO GPU 123", "CQ CQ DE PY2ABC", "the quick brown fox?!"]
 
 
 def _batchify(waves):
@@ -89,12 +89,12 @@ def test_decode_from_buffer_text_parity(tmp_path):
 
 @pytest.mark.parametrize("dtype", [np.float32, np.int16])
 def test_preshaped_rows_match_flat(dtype):
-    """(B, n_pix, spp) host pre-shaped pixel windows (the TPU ship layout,
+    """(B, n_pix, spp) host pre-shaped pixel windows (the host-shaped layout,
     f32 view or int16 quantized) decode identically to the flat (B, N)
     device path."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops.hell import hell_demod_text_batch
+    from audio_modem_radio.ops.hell import hell_demod_text_batch
 
     spp = int(round(96000 / 122.5))
     waves = [np.asarray(hellschreiber_modulate(t), np.float32) for t in TEXTS]
@@ -116,8 +116,8 @@ def test_preshaped_rows_match_flat(dtype):
 
 def test_host_shape_batch_hell_layout():
     """host_shape_batch ships hell captures as (B, n_pix, spp) windows (f32
-    passthrough on CPU backends; the int16 quantized layout is TPU-gated)."""
-    from audio_modem_radio_tpu.parallel.batch import host_shape_batch
+    passthrough by default; int16 quantized with CONFIG device.int16_rows)."""
+    from audio_modem_radio.parallel.batch import host_shape_batch
 
     wave = np.asarray(hellschreiber_modulate(TEXTS[0]), np.float32)
     batch = _batchify([wave, wave])

@@ -8,13 +8,13 @@ import time
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.observability import (
+from audio_modem_radio.observability import (
     AnalyticsStore,
     LogManager,
     PerformanceMonitor,
     setup_logging,
 )
-from audio_modem_radio_tpu.ptt import PTTContext, PTTManager, SimulatedPort
+from audio_modem_radio.ptt import PTTContext, PTTManager, SimulatedPort
 
 
 @pytest.fixture
@@ -60,9 +60,9 @@ def test_ptt_context_keys_and_unkeys_even_on_error():
 # --- audio I/O fakes ---------------------------------------------------------
 
 def test_file_recorder_roundtrip(workdir):
-    from audio_modem_radio_tpu.audio_io import FileRecorder, ReceiveSession
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.audio_io import FileRecorder, ReceiveSession
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.encoder import encode_file
 
     content = b"live capture simulation " * 30
     src = workdir / "x.bin"
@@ -78,7 +78,7 @@ def test_file_recorder_roundtrip(workdir):
 
 
 def test_recorder_unavailable_raises():
-    from audio_modem_radio_tpu import audio_io
+    from audio_modem_radio import audio_io
 
     if audio_io.SOUNDDEVICE_AVAILABLE:
         pytest.skip("sounddevice installed")
@@ -133,7 +133,7 @@ def test_analytics_store_roundtrip(workdir):
 # --- console app ----------------------------------------------------------------
 
 def test_console_app_smoke(workdir, monkeypatch, capsys):
-    from audio_modem_radio_tpu.app import ConsoleApp
+    from audio_modem_radio.app import ConsoleApp
 
     src = workdir / "tiny.bin"
     src.write_bytes(b"console app payload " * 10)
@@ -168,11 +168,11 @@ def test_spectral_gate_denoise(tmp_path, monkeypatch, rng):
     the spectral gate suppresses out-of-band structured interference without
     breaking a clean decode."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.denoise import spectral_gate
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.denoise import spectral_gate
+    from audio_modem_radio.utils.wavio import read_wav
 
     data = rng.integers(0, 256, 2000, dtype=np.uint8).tobytes()
     src = tmp_path / "d.bin"

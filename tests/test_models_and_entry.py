@@ -5,7 +5,7 @@ import pytest
 
 import jax
 
-from audio_modem_radio_tpu.models import neural_modem as nm
+from audio_modem_radio.models import neural_modem as nm
 
 
 def test_toy_neural_api_shapes():

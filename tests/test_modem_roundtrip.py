@@ -9,10 +9,10 @@ and under impairments (AWGN, amplitude scaling, time offset, polarity flip).
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import MODES, demodulate, modulate
-from audio_modem_radio_tpu.ops.fsk import fsk_demodulate, fsk_modulate
-from audio_modem_radio_tpu.ops.psk import (
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import MODES, demodulate, modulate
+from audio_modem_radio.ops.fsk import fsk_demodulate, fsk_modulate
+from audio_modem_radio.ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
     qpsk_demodulate,
@@ -142,7 +142,7 @@ def test_batched_path_matches_generic_path(rng):
     # must produce identical bytes.
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.parallel.batch import demod_pack_batch
+    from audio_modem_radio.parallel.batch import demod_pack_batch
 
     data = rng.integers(0, 256, 2048, dtype=np.uint8).tobytes()
     framed = _frame(data)
@@ -175,8 +175,8 @@ def test_fsk9600_rotated_channel_equalizer_floor(rng):
     import jax.numpy as jnp
     from scipy.signal import hilbert
 
-    from audio_modem_radio_tpu.ops.common import bytes_to_bits
-    from audio_modem_radio_tpu.ops.fsk import fsk_demod_bits
+    from audio_modem_radio.ops.common import bytes_to_bits
+    from audio_modem_radio.ops.fsk import fsk_demod_bits
 
     data = rng.integers(0, 256, 2048, dtype=np.uint8).tobytes()
     framed = _frame(data)
@@ -196,8 +196,8 @@ def test_fsk9600_long_capture_blocked_mlse(rng):
     """Captures beyond the old 2^18-bit MLSE gate decode bit-exact via the
     block-parallel Viterbi (VERDICT r1 weak #4: long FSK9600 captures
     silently skipped MLSE)."""
-    from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-    from audio_modem_radio_tpu.ops.fsk import fsk_demodulate, fsk_modulate
+    from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio.ops.fsk import fsk_demodulate, fsk_modulate
 
     payload = rng.integers(0, 256, 40_000, dtype=np.uint8).tobytes()
     framed = pack_frame("big.bin", payload, 0, 1, len(payload), crc32(payload))
@@ -210,7 +210,7 @@ def test_fsk9600_long_capture_blocked_mlse(rng):
 def test_slow_hell_roundtrip():
     """SLOW_HELL — a reference catalog label with no implementation there —
     is a real mode here: Hellschreiber glyphs at half pixel rate."""
-    from audio_modem_radio_tpu.modem import MODES, demodulate, modulate
+    from audio_modem_radio.modem import MODES, demodulate, modulate
 
     assert "SLOW_HELL" in MODES
     wave = modulate("SLOW_HELL", b"SLOW HELL 42", 0)

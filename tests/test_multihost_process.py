@@ -20,14 +20,14 @@ _CHILD = textwrap.dedent(
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from audio_modem_radio_tpu.parallel import multihost
+    from audio_modem_radio.parallel import multihost
     multihost.initialize(
         coordinator_address=f"localhost:{{port}}", num_processes=2, process_id=pid
     )
     assert jax.process_count() == 2, jax.process_count()
     os.chdir(workdir)
-    from audio_modem_radio_tpu.assembly import AssemblyRegistry
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.assembly import AssemblyRegistry
+    from audio_modem_radio.encoder import encode_file
     if pid == 0:
         wavs = []
         for i in range(4):

@@ -8,8 +8,8 @@ exercised instead (same assertions hold).
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu import native
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames_detailed
+from audio_modem_radio import native
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames_detailed
 
 
 def test_native_availability_reported():
@@ -54,7 +54,7 @@ def test_scan_frames_empty_and_garbage():
 
 
 def test_load_wav_batch_roundtrip(tmp_path, rng):
-    from audio_modem_radio_tpu.utils.wavio import write_wav
+    from audio_modem_radio.utils.wavio import write_wav
 
     paths = []
     refs = []
@@ -102,7 +102,7 @@ def test_native_crc32_prefix_find():
 
     import numpy as np
 
-    from audio_modem_radio_tpu.native import available, crc32_prefix_find
+    from audio_modem_radio.native import available, crc32_prefix_find
 
     if not available():
         import pytest
@@ -120,7 +120,7 @@ def test_native_viterbi_matches_jax_trellis(rng):
     soft inputs, with and without known boundaries."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.fec import ConvolutionalEncoder, viterbi_decode_bits
+    from audio_modem_radio.fec import ConvolutionalEncoder, viterbi_decode_bits
 
     if not native.viterbi_available():
         pytest.skip("native library unavailable")
@@ -143,7 +143,7 @@ def test_native_viterbi_matches_jax_trellis(rng):
 def test_native_viterbi_long_container_roundtrip(rng):
     """Above the block-parallel threshold ViterbiDecoder routes through the
     native sweep; a 256 KB noisy container still decodes byte-exact."""
-    from audio_modem_radio_tpu.fec import ConvolutionalEncoder, ViterbiDecoder
+    from audio_modem_radio.fec import ConvolutionalEncoder, ViterbiDecoder
 
     if not native.viterbi_available():
         pytest.skip("native library unavailable")

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import MODES, demodulate, modulate
-from audio_modem_radio_tpu.ops.neural import (
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import MODES, demodulate, modulate
+from audio_modem_radio.ops.neural import (
     CHIPS_PER_SYMBOL,
     PREAMBLE_LEN,
     _chip_len,
@@ -69,9 +69,9 @@ def test_recommender_neural_end_to_end(tmp_path, monkeypatch, rng):
     """VERDICT r1 weak #3: intelligent_encode_setup -> encode_file must not
     crash; the NEURAL recommendation now round-trips."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.decoder import decode_wav_file
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.intelligence import intelligent_encode_setup
+    from audio_modem_radio.decoder import decode_wav_file
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.intelligence import intelligent_encode_setup
 
     data = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
     src = tmp_path / "f.bin"
@@ -87,8 +87,8 @@ def test_unknown_mode_encodes_as_qpsk(tmp_path, monkeypatch, rng):
     arm (encoder.py:284-296) — and the unknown-mode DECODE falls back to
     QPSK too (decoder.py:433-434), so a typo'd config still round-trips."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.decoder import decode_wav_file
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.decoder import decode_wav_file
+    from audio_modem_radio.encoder import encode_file
 
     data = rng.integers(0, 256, 500, dtype=np.uint8).tobytes()
     src = tmp_path / "f.bin"
@@ -105,7 +105,7 @@ def test_chip_len_even():
 
 def test_preamble_is_stable():
     """The preamble is wire format: changing it breaks old captures."""
-    from audio_modem_radio_tpu.ops.neural import _preamble_symbols
+    from audio_modem_radio.ops.neural import _preamble_symbols
 
     assert PREAMBLE_LEN == 32
     assert _preamble_symbols()[:4].tolist() == _preamble_symbols()[:4].tolist()
@@ -116,8 +116,8 @@ def test_preamble_is_stable():
 
 def test_neural_batched_sharded_decode(rng):
     """NEURAL in the batched fast path, sharded over the 8-device mesh."""
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
-    from audio_modem_radio_tpu.parallel.mesh import get_mesh
+    from audio_modem_radio.parallel.batch import decode_sample_batch
+    from audio_modem_radio.parallel.mesh import get_mesh
 
     payloads, waves = [], []
     for i in range(8):
@@ -145,7 +145,7 @@ def test_neural_prefix_sync_equals_full_and_escalates(rng):
     the threshold relies on is pinned (clean >> threshold >> noise)."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops.neural import (
+    from audio_modem_radio.ops.neural import (
         TD_PREFIX_RHO,
         _chip_len,
         _chip_shift_table,
@@ -187,7 +187,7 @@ def test_neural_prefix_sync_equals_full_and_escalates(rng):
 
     # rho separation: clean prefix-resident preamble far above the
     # threshold, pure noise far below (the accept rule's safety margins).
-    from audio_modem_radio_tpu.ops.neural import (
+    from audio_modem_radio.ops.neural import (
         _energy_table,
         _preamble_energy,
         _td_corr,
@@ -215,7 +215,7 @@ def test_neural_prefix_sync_equals_full_and_escalates(rng):
 def test_codebook_loads_zip_safe(monkeypatch):
     """The codebook loads through importlib.resources when the filesystem
     path is absent (zipapp / wheel-in-zip deployment)."""
-    import audio_modem_radio_tpu.ops.neural as nmod
+    import audio_modem_radio.ops.neural as nmod
 
     nmod._codebook.cache_clear()
     monkeypatch.setattr(nmod, "_CODEBOOK_PATH", "/nonexistent/neural_codebook.npz")
@@ -235,7 +235,7 @@ def test_td_demod_matches_oracle_at_offsets(rng):
     offsets, including lengths that are not 128-multiples."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops import neural as NE
+    from audio_modem_radio.ops import neural as NE
 
     payload = rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
     wave = NE.neural_mode_modulate(payload, 9600)
@@ -271,102 +271,88 @@ def test_td_demod_matches_oracle_at_offsets(rng):
         assert got == payload
 
 
-def test_td_kernel_matches_xla_extract(rng):
-    """The fused extraction kernel (interpret mode on CPU) reproduces the
-    XLA extraction over the payload span at multiple timing offsets, and
-    the kernel path recovers the payload bytes exactly. The capture tail
-    beyond the transmission legitimately differs (clamped-lookahead vs
-    circular-wrap garbage)."""
+@pytest.mark.parametrize("off", [0, 777, 10000])
+def test_td_batch_matches_numpy_demod(off, rng):
+    """The batched time-domain demod (prefix sync + blocked chip
+    extraction + codebook scoring) equals the plain numpy FFT receiver
+    (``_demod_np``) over the payload span at several timing offsets, and
+    recovers the payload bytes."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops.neural import demod_td_batch
+    from audio_modem_radio.ops.neural import (
+        _codebook,
+        _demod_np,
+        _preamble_baseband,
+        demod_td_batch,
+    )
 
     chip_len = _chip_len(9600)
     payload = rng.integers(0, 256, 900, dtype=np.uint8)
     wave = np.asarray(neural_mode_modulate(payload.tobytes(), 9600), np.float32)
-    n = 1 << 17  # r3 = 1024, a multiple of the kernel's 512-row block
-    batch = np.zeros((3, n), np.float32)
-    for i, off in enumerate([0, 777, 130000 - len(wave)]):
-        batch[i, off : off + len(wave)] = wave[: n - off]
-    s_x = np.asarray(demod_td_batch(jnp.asarray(batch), chip_len, kernel=False))
-    s_k = np.asarray(demod_td_batch(jnp.asarray(batch), chip_len, kernel=True))
+    n = 1 << 17
+    cap = np.zeros(n, np.float32)
+    cap[off : off + len(wave)] = wave[: n - off]
+    got = np.asarray(demod_td_batch(jnp.asarray(cap[None]), chip_len))[0]
+    want = _demod_np(cap, _codebook(), _preamble_baseband(chip_len), chip_len, 2 * n)
     n_use = PREAMBLE_LEN + len(payload)
-    for i in range(3):
-        assert np.array_equal(s_x[i, :n_use], s_k[i, :n_use])
-        assert np.array_equal(
-            s_k[i, PREAMBLE_LEN : PREAMBLE_LEN + len(payload)], payload
-        )
-    # The bf16 MXU variant (measured-negative for speed on chip, kept
-    # opt-in — PERF.md r5) must stay symbol-exact over the payload span.
-    s_b = np.asarray(
-        demod_td_batch(jnp.asarray(batch), chip_len, kernel=True, kernel_bf16=True)
-    )
-    for i in range(3):
-        assert np.array_equal(s_k[i, :n_use], s_b[i, :n_use])
+    assert np.array_equal(got[:n_use], want[:n_use])
+    assert np.array_equal(got[PREAMBLE_LEN:n_use], payload)
 
 
-def test_td_kernel_gate_falls_back(rng):
-    """Geometries the kernel doesn't map (r3 % 512 != 0) still decode via
-    the XLA extraction under kernel=True's auto-gate."""
+def test_td_batch_short_capture_decodes(rng):
+    """A capture of 128 rows (shorter than the prefix-search span's
+    escalation threshold) decodes through the full-lag search."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops.neural import demod_td_batch
+    from audio_modem_radio.ops.neural import demod_td_batch
 
     chip_len = _chip_len(9600)
     payload = rng.integers(0, 256, 100, dtype=np.uint8)
     wave = np.asarray(neural_mode_modulate(payload.tobytes(), 9600), np.float32)
-    n = 1 << 14  # r3 = 128, not a multiple of 512
+    n = 1 << 14
     batch = np.zeros((1, n), np.float32)
     batch[0, : len(wave)] = wave[:n]
-    syms = np.asarray(demod_td_batch(jnp.asarray(batch), chip_len, kernel=True))
-    assert np.array_equal(
-        syms[0, PREAMBLE_LEN : PREAMBLE_LEN + len(payload)], payload
-    )
+    syms = np.asarray(demod_td_batch(jnp.asarray(batch), chip_len))
+    assert np.array_equal(syms[0, PREAMBLE_LEN : PREAMBLE_LEN + len(payload)], payload)
 
 
-def test_extract_kernel_vpu_variants_symbol_equal(rng):
-    """The VPU-residue kernel variants (compaction="stack" single selection
-    dot; argmax="dot" one-hot index matmul with tie-count gate) must stay
-    symbol-exact against the production loop kernel — clean AND noisy, with
-    leading silence (all-zero rows exercise the 256-way-tie path, where the
-    count gate and the loop's first-max must both yield symbol 0). On-chip
-    verdicts (neural_vpu_ab.json): argmax="dot" ADOPTED as the production
-    default (extraction 12.0 -> 7.9 ms); compaction="stack" measured
-    NEGATIVE and stays opt-in-off (neural_compaction_ab.json). This pins
-    every variant combination symbol-equal so both the adopted path and
-    the recorded negative result remain reproducible."""
+@pytest.mark.parametrize("noisy", [False, True])
+def test_td_extract_matches_numpy_scoring(noisy, rng):
+    """``_td_extract`` at a fixed (k0, phase) equals plain numpy chip
+    averaging + codebook argmax — clean and at 10 dB, with leading silence
+    (all-zero symbols score a 256-way tie; both sides pick codeword 0)."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.ops import neural as nn
-    from audio_modem_radio_tpu.ops.pallas_kernels import neural_extract_batch
+    from audio_modem_radio.ops import neural as nn
 
     chip_len = _chip_len(9600)
     payload = rng.integers(0, 256, 700, dtype=np.uint8)
     wave = np.asarray(neural_mode_modulate(payload.tobytes(), 9600), np.float32)
-    n = 1 << 16  # r3 = 512, one kernel block
-    cap = np.zeros((2, n), np.float32)
-    cap[0, : len(wave)] = wave[:n]
-    cap[1, 4096 : 4096 + len(wave)] = wave[: n - 4096]  # leading silence
-    p = float(np.mean(wave**2))
-    cap[1] = cap[1] + rng.normal(0, np.sqrt(p / 10), n).astype(np.float32)
-
-    r3 = n // 128
-    cpr = 128 // chip_len
-    spr = cpr // CHIPS_PER_SYMBOL
-    cb = jnp.asarray(nn._codebook_blocked(chip_len))
-    ct = nn._chip_shift_table(chip_len, jnp.float32(1.0))
-    k0 = jnp.zeros((2,), jnp.int32) + 5
-    ph = jnp.stack([jnp.ones((2,)), jnp.zeros((2,))], axis=1)
-
-    def run(**kw):
-        return np.asarray(
-            neural_extract_batch(
-                jnp.asarray(cap).reshape(2 * r3, 128), ct, cb, ph, k0,
-                rows_per_capture=r3, spr=spr, interpret=True, **kw,
-            )
+    n = 1 << 16
+    cap = np.zeros(n, np.float32)
+    cap[4096 : 4096 + len(wave)] = wave[: n - 4096]
+    if noisy:
+        p = float(np.mean(wave**2))
+        cap = cap + rng.normal(0, np.sqrt(p / 10), n).astype(np.float32)
+    k0 = 4096 + 5
+    zr, zi = nn._td_prep(jnp.asarray(cap))
+    got = np.asarray(
+        nn._td_extract(
+            zr, zi, jnp.int32(k0), jnp.float32(1.0), jnp.float32(0.0),
+            jnp.asarray(nn._codebook_blocked(chip_len)),
+            nn._chip_shift_table(chip_len, jnp.float32(1.0)),
         )
-
-    base = run()
-    assert np.array_equal(base, run(compaction="stack"))
-    assert np.array_equal(base, run(argmax="dot"))
-    assert np.array_equal(base, run(compaction="stack", argmax="dot"))
+    )
+    # Plain numpy: circular shift to k0, fs/4 downconversion, chip means.
+    zr_np = np.roll(np.asarray(zr, np.float64), -k0)
+    zi_np = np.roll(np.asarray(zi, np.float64), -k0)
+    spsym = CHIPS_PER_SYMBOL * chip_len
+    n_sym = n // spsym
+    cr = zr_np[: n_sym * spsym].reshape(n_sym, CHIPS_PER_SYMBOL, chip_len).mean(-1)
+    ci = zi_np[: n_sym * spsym].reshape(n_sym, CHIPS_PER_SYMBOL, chip_len).mean(-1)
+    scores = np.concatenate([cr, ci], axis=1) @ nn._codebook().T.astype(np.float64)
+    want = np.argmax(scores, axis=1)
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-4 * (np.abs(top2[:, 1]) + 1e-9)
+    n_cmp = min(len(got), n_sym) - 1  # last symbol wraps the capture end
+    assert np.array_equal(got[:n_cmp][clear[:n_cmp]], want[:n_cmp][clear[:n_cmp]])

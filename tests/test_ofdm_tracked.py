@@ -20,9 +20,9 @@ not reference parity.
 
 import numpy as np
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import demodulate, modulate
-from audio_modem_radio_tpu.ops import ofdm
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import demodulate, modulate
+from audio_modem_radio.ops import ofdm
 
 BAUD, CARRIER, SR = 9600, 12000.0, 96000
 
@@ -82,7 +82,7 @@ def test_mode_level_escalation():
     """modem's OFDM4 receive escalates to the per-subcarrier tracker when
     the differential pass finds no complete capture — and only when the
     shared psk_coherent_escalation flag allows."""
-    from audio_modem_radio_tpu.config import CONFIG
+    from audio_modem_radio.config import CONFIG
 
     payload, framed = _frame()
     wave = np.asarray(modulate("OFDM4", framed, BAUD), np.float32)

@@ -5,7 +5,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from audio_modem_radio_tpu.ops.common import (
+from audio_modem_radio.ops.common import (
     analytic_bandpass,
     bit_sync_and_pack,
     bits_to_bytes,
@@ -90,42 +90,29 @@ def test_analytic_bandpass_extracts_tone():
     assert abs(np.median(inst[mid]) - 3000) < 20
 
 
-def test_rotation_match_kernel_interpret(rng):
-    """Pallas rotation matcher (interpreter mode) agrees with a direct numpy
-    evaluation of the 8 hypothesis condition sets, including planted rotated
-    magics and not-found hypotheses."""
+@pytest.mark.parametrize("k", [0, 3])
+def test_rotation_sync_matches_plain_reference(k, rng):
+    """``dibit_sync_and_pack_rotations`` agrees with the plain numpy sync on
+    random lanes with the magic, as received under rotation ``k``, planted
+    at an odd bit parity, and on lanes with none."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.framing import MAGIC_BIT_PATTERN
-    from audio_modem_radio_tpu.ops.pallas_kernels import (
-        rotation_match_batch,
-        rotation_match_conditions,
-    )
+    import plain_reference as ref
+    from audio_modem_radio.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+    from audio_modem_radio.ops.common import dibit_sync_and_pack_rotations
 
-    conds, n_dib = rotation_match_conditions(MAGIC_BIT_PATTERN)
-    B, R = 2, 256
-    hi = rng.integers(0, 2, (B, R, 128)).astype(np.uint8)
-    lo = rng.integers(0, 2, (B, R, 128)).astype(np.uint8)
-    for h, p in {0: 5000, 3: 7000, 6: 1234}.items():
-        fh, fl = hi[0].reshape(-1), lo[0].reshape(-1)
-        for is_hi, off, bit in conds[h]:
-            (fh if is_hi else fl)[p + off] = bit
-
-    first, found = rotation_match_batch(
-        jnp.asarray(hi), jnp.asarray(lo), MAGIC_BIT_PATTERN, R, interpret=True
-    )
-    first, found = np.asarray(first), np.asarray(found)
-
-    for b in range(B):
-        fh, fl = hi[b].reshape(-1), lo[b].reshape(-1)
-        m = len(fh)
-        L = m - (n_dib + 1)
-        for h, c in enumerate(conds):
-            match = np.ones(L, bool)
-            for is_hi, off, bit in c:
-                src = fh if is_hi else fl
-                match &= src[off : off + L] == bit
-            exp_found = bool(match.any())
-            assert bool(found[b, h]) == exp_found, (b, h)
-            if exp_found:
-                assert int(first[b, h]) == int(np.argmax(match)), (b, h)
+    m = 256 * 128
+    hi = rng.integers(0, 2, m).astype(np.uint8)
+    lo = rng.integers(0, 2, m).astype(np.uint8)
+    bits = ref.interleave(hi, lo)
+    p = ref.rotate_pattern(ref.bits_of(MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2), k)
+    bits[7001 : 7001 + len(p)] = p  # odd parity: starts in a lo lane
+    hi, lo = bits[0::2], bits[1::2]
+    for h, l in ((hi, lo), (np.zeros_like(hi), np.zeros_like(lo))):
+        packed, n_valid, found = dibit_sync_and_pack_rotations(
+            jnp.asarray(h), jnp.asarray(l), MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+        )
+        want, want_found = ref.dibit_sync(h, l)
+        assert bool(found) == want_found
+        assert bytes(np.asarray(packed)[: int(n_valid)]) == want
+    assert want_found is False and ref.dibit_sync(hi, lo)[1]

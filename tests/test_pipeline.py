@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.assembly import AssemblyRegistry
-from audio_modem_radio_tpu.decoder import (
+from audio_modem_radio.assembly import AssemblyRegistry
+from audio_modem_radio.decoder import (
     decode_from_buffer,
     decode_wav_file,
     decode_with_retry,
     get_assembly_status,
     get_reception_stats,
 )
-from audio_modem_radio_tpu.encoder import (
+from audio_modem_radio.encoder import (
     calculate_transmission_stats,
     encode_file,
     encode_file_parts,
@@ -21,7 +21,7 @@ from audio_modem_radio_tpu.encoder import (
     split_file_for_transmission,
     verify_audio_output,
 )
-from audio_modem_radio_tpu.utils.wavio import read_wav
+from audio_modem_radio.utils.wavio import read_wav
 
 
 @pytest.fixture
@@ -138,7 +138,7 @@ def test_verify_audio_output_checklist():
 
 
 def test_cancellation(workdir):
-    from audio_modem_radio_tpu.encoder import cancel_encoding, reset_encoding_cancel
+    from audio_modem_radio.encoder import cancel_encoding, reset_encoding_cancel
 
     data = np.random.default_rng(9).integers(0, 256, 15000, dtype=np.uint8).tobytes()
     src = _write_file(workdir, "c.bin", data)

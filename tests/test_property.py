@@ -12,8 +12,8 @@ import numpy as np
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames_detailed
-from audio_modem_radio_tpu.utils.compression import (
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames_detailed
+from audio_modem_radio.utils.compression import (
     delta_compress,
     delta_decompress,
     intelligent_compress,
@@ -79,7 +79,7 @@ def test_super_compress_roundtrip(data):
 def test_native_scanner_matches_python(blob):
     """Differential fuzzing: the C++ scanner and the Python parser must agree
     on arbitrary byte streams (frames AND damaged-frame sets)."""
-    from audio_modem_radio_tpu.native import NATIVE_AVAILABLE, scan_frames
+    from audio_modem_radio.native import NATIVE_AVAILABLE, scan_frames
 
     if not NATIVE_AVAILABLE:
         import pytest
@@ -94,7 +94,7 @@ def test_native_scanner_matches_python(blob):
 @settings(max_examples=30, deadline=None)
 @given(st.binary(min_size=1, max_size=1024), st.integers(0, 1 << 30))
 def test_fec_roundtrip_and_bitflip(data, flip_pos):
-    from audio_modem_radio_tpu.fec import unwrap_fec, wrap_fec
+    from audio_modem_radio.fec import unwrap_fec, wrap_fec
 
     blob = wrap_fec(data, "convolutional")
     assert unwrap_fec(blob) == data

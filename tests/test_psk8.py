@@ -10,10 +10,10 @@ the same deviation pattern as real OFDM (COMPAT.md).
 import numpy as np
 import pytest
 
-import audio_modem_radio_tpu as amr
-from audio_modem_radio_tpu.config import CONFIG
-from audio_modem_radio_tpu.framing import crc32
-from audio_modem_radio_tpu.ops.psk import (
+import audio_modem_radio as amr
+from audio_modem_radio.config import CONFIG
+from audio_modem_radio.framing import crc32
+from audio_modem_radio.ops.psk import (
     _GRAY8,
     _GRAY8_INV,
     PSK8_PREAMBLE_BITS,
@@ -111,7 +111,7 @@ def test_compat_alias_wire_format_is_dqpsk():
     ref = amr.modulate("QPSK", framed, 9600)
     # Alias at carrier 12 kHz vs QPSK registry at 3 kHz: same LENGTH (same
     # dibit count), different carrier — compare against the direct call.
-    from audio_modem_radio_tpu.modem import psk8_modulate
+    from audio_modem_radio.modem import psk8_modulate
 
     np.testing.assert_array_equal(
         np.asarray(wave), np.asarray(psk8_modulate(framed, 9600, 12000.0))
@@ -122,7 +122,7 @@ def test_compat_alias_wire_format_is_dqpsk():
 def test_psk8_batched_decode():
     payload, framed = _framed(500, name="b8.bin")
     wave = np.asarray(amr.modulate("8PSK", framed, 9600), np.float32)
-    from audio_modem_radio_tpu.parallel.batch import decode_sample_batch
+    from audio_modem_radio.parallel.batch import decode_sample_batch
 
     n = 1 << 21
     batch = np.zeros((2, n), np.float32)
@@ -140,7 +140,7 @@ def test_psk8_nosync_streams_carry_the_frame():
     (stream, bit shift) — the rescue sweep's search space (the packed
     alignment is offset by the differential stream's bit phase, here 3·39
     preamble bits ≡ 5 mod 8)."""
-    from audio_modem_radio_tpu.ops.psk import psk8_nosync_streams
+    from audio_modem_radio.ops.psk import psk8_nosync_streams
 
     payload, framed = _framed(200, name="r8.bin")
     wave = np.asarray(psk8_real_modulate(framed, 1200, 3000.0, 96000), np.float32)
@@ -160,7 +160,7 @@ def test_psk8_magic_damage_rescue_e2e(tmp_path):
     the decoder's no-sync rescue ladder (decode_from_buffer ->
     _nosync_streams -> recover_header_damaged), the DQPSK header-tolerant
     guarantee extended to the tribit mode."""
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
+    from audio_modem_radio.decoder import decode_from_buffer
 
     payload, framed = _framed(200, name="h8.bin")
     bad = bytearray(framed)
@@ -174,8 +174,8 @@ def test_psk8_magic_damage_rescue_e2e(tmp_path):
 
 def test_psk8_encode_decode_pipeline(tmp_path):
     """encoder.encode_file -> decoder.decode_wav_file, the user surface."""
-    from audio_modem_radio_tpu.decoder import decode_wav_file
-    from audio_modem_radio_tpu.encoder import encode_file
+    from audio_modem_radio.decoder import decode_wav_file
+    from audio_modem_radio.encoder import encode_file
 
     payload = RNG.integers(0, 256, 2048, dtype=np.uint8).tobytes()
     src = tmp_path / "doc8.bin"

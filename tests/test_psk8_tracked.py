@@ -20,10 +20,10 @@ bound harness, not reference parity.
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.config import CONFIG
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import demodulate
-from audio_modem_radio_tpu.ops import psk
+from audio_modem_radio.config import CONFIG
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import demodulate
+from audio_modem_radio.ops import psk
 
 BAUD, CARRIER, SR = 4800, 12000.0, 96000
 
@@ -197,8 +197,8 @@ def test_escalation_rescues_partial_multiframe_capture():
     parses 1 valid + 1 damaged; tracked parses both on 5/6 seeds — seed 20
     chosen). The 3200-sample gap is 160 symbols = 320 bits = 40 bytes, so
     frame 1 stays byte-aligned after the single global magic alignment."""
-    from audio_modem_radio_tpu.framing import pack_frame, parse_frames_detailed
-    from audio_modem_radio_tpu.modem import modulate
+    from audio_modem_radio.framing import pack_frame, parse_frames_detailed
+    from audio_modem_radio.modem import modulate
 
     def _part(n, part, seed):
         payload = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)

@@ -15,8 +15,8 @@ import os
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.config import CONFIG
-from audio_modem_radio_tpu.intelligence import (
+from audio_modem_radio.config import CONFIG
+from audio_modem_radio.intelligence import (
     MEASURED_MIN_SNR,
     MODE_PROFILES,
     REFERENCE_MODE_PROFILES,
@@ -106,9 +106,9 @@ def test_recommended_low_snr_setup_roundtrips(tmp_path, monkeypatch, rng):
     """A robustness recommendation at low SNR yields an encoder setup that
     actually round-trips through its own channel regime."""
     monkeypatch.chdir(tmp_path)
-    from audio_modem_radio_tpu.decoder import decode_from_buffer
-    from audio_modem_radio_tpu.encoder import encode_file
-    from audio_modem_radio_tpu.utils.wavio import read_wav
+    from audio_modem_radio.decoder import decode_from_buffer
+    from audio_modem_radio.encoder import encode_file
+    from audio_modem_radio.utils.wavio import read_wav
 
     setup = intelligent_encode_setup(500, priority="robustness",
                                      conditions={"snr_db": 0})

@@ -19,10 +19,10 @@ import os
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.framing import parse_frames
-from audio_modem_radio_tpu.ops.fsk import fsk_demodulate, fsk_modulate
-from audio_modem_radio_tpu.ops.hell import hellschreiber_demodulate, hellschreiber_modulate
-from audio_modem_radio_tpu.ops.psk import (
+from audio_modem_radio.framing import parse_frames
+from audio_modem_radio.ops.fsk import fsk_demodulate, fsk_modulate
+from audio_modem_radio.ops.hell import hellschreiber_demodulate, hellschreiber_modulate
+from audio_modem_radio.ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
     qpsk_demodulate,

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames
-from audio_modem_radio_tpu.modem import modulate
-from audio_modem_radio_tpu.parallel.mesh import get_mesh
-from audio_modem_radio_tpu.parallel.sequence import decode_capture_sharded
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames
+from audio_modem_radio.modem import modulate
+from audio_modem_radio.parallel.mesh import get_mesh
+from audio_modem_radio.parallel.sequence import decode_capture_sharded
 
 PAYLOAD = bytes(b"sequence parallel decode across the mesh " * 24)
 
@@ -25,7 +25,7 @@ def test_sharded_capture_roundtrip(mode, rate):
 
 
 def test_sharded_matches_single_device():
-    from audio_modem_radio_tpu.ops.psk import qpsk_demodulate
+    from audio_modem_radio.ops.psk import qpsk_demodulate
 
     wave = _tx("QPSK", 4800)
     sharded = decode_capture_sharded(wave, "QPSK", 4800, get_mesh())
@@ -49,7 +49,7 @@ def test_sharded_hell_roundtrip():
     to whole pixel windows so detection has no cross-shard coupling; glyph
     segmentation runs on the gathered pixel stream. Text modes yield TEXT
     bytes, like the batched text path."""
-    from audio_modem_radio_tpu.ops.hell import hellschreiber_modulate
+    from audio_modem_radio.ops.hell import hellschreiber_modulate
 
     text = "SEQUENCE PARALLEL HELL 123"
     wave = np.asarray(hellschreiber_modulate(text), np.float32)
@@ -95,7 +95,7 @@ def test_sharded_fsk_with_leading_silence():
 
 
 def test_sharded_fsk_matches_single_device():
-    from audio_modem_radio_tpu.ops.fsk import fsk_demodulate
+    from audio_modem_radio.ops.fsk import fsk_demodulate
 
     wave = _tx("FSK1200", 1200)
     raw_sharded = decode_capture_sharded(wave, "FSK1200", 1200, get_mesh())
@@ -105,7 +105,7 @@ def test_sharded_fsk_matches_single_device():
 
 
 def test_sharded_fsk_discriminator_config_raises():
-    from audio_modem_radio_tpu.parallel.sequence import demod_fsk_capture_sharded
+    from audio_modem_radio.parallel.sequence import demod_fsk_capture_sharded
 
     with pytest.raises(ValueError, match="dual-tone"):
         demod_fsk_capture_sharded(
@@ -160,7 +160,7 @@ def test_sharded_dsss_roundtrip():
 
 
 def test_sharded_dsss_matches_single_device():
-    from audio_modem_radio_tpu.ops.dsss import dsss_real_demodulate
+    from audio_modem_radio.ops.dsss import dsss_real_demodulate
 
     data = PAYLOAD[:256]
     wave = _tx("DSSS", 9600, data)

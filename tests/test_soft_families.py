@@ -14,14 +14,14 @@ no reference analog; the bar is this repo's own robustness ladder.
 import numpy as np
 import pytest
 
-import audio_modem_radio_tpu as amr
-from audio_modem_radio_tpu.decoder import (
+import audio_modem_radio as amr
+from audio_modem_radio.decoder import (
     _soft_bit_stream,
     pad_to_bucket,
     recover_payload_fec_soft,
 )
-from audio_modem_radio_tpu.fec import unwrap_fec, wrap_fec
-from audio_modem_radio_tpu.framing import crc32, pack_frame, parse_frames_detailed
+from audio_modem_radio.fec import unwrap_fec, wrap_fec
+from audio_modem_radio.framing import crc32, pack_frame, parse_frames_detailed
 
 
 def _damaged_fecv_capture(mode, rate, nbytes, seed, sigma):
@@ -42,7 +42,7 @@ def _damaged_fecv_capture(mode, rate, nbytes, seed, sigma):
     # carries ~10x fewer errors), which would invalidate the hard-fail
     # premise this harness exists to pin. The soft ladder under test starts
     # from the differential stream, so build the capture the same way.
-    from audio_modem_radio_tpu.config import CONFIG
+    from audio_modem_radio.config import CONFIG
 
     CONFIG.set("modem.psk_coherent_escalation", False)
     try:
@@ -75,7 +75,7 @@ def test_soft_payload_fec_recovers_dsss_with_corrupt_tag():
     gate rejected exactly the low-SNR captures the escalation exists for;
     the Hamming-distance gate admits them (acceptance stays CRC-proof-exact).
     """
-    from audio_modem_radio_tpu.fec import TAG_VITERBI
+    from audio_modem_radio.fec import TAG_VITERBI
 
     data, noisy, raw, damaged = _damaged_fecv_capture("DSSS", 9600, 120, 1010, 2.25)
     rec = recover_payload_fec_soft(raw, noisy, "DSSS", 9600, list(damaged))
@@ -111,7 +111,7 @@ def test_soft_threshold_matches_hard_bits_per_family(rng):
     """On a clean capture, thresholding the k=0 soft stream reproduces the
     transmitted bits for each NEW family (producer/hard-path agreement —
     the property recover_payload_fec_soft's header search depends on)."""
-    from audio_modem_radio_tpu.ops.common import bytes_to_bits
+    from audio_modem_radio.ops.common import bytes_to_bits
 
     data = rng.integers(0, 256, 120, dtype=np.uint8).tobytes()
     target = "".join(map(str, bytes_to_bits(data)[:256].tolist()))

@@ -64,7 +64,7 @@ def test_standalone_runs_without_host_python(artifact, tmp_path):
     assert str(zlib_crc()) in res.stdout
     # the interpreter must run from the extracted prefix, not the build host's
     prefix = [l for l in res.stdout.splitlines() if l.startswith("PREFIX ")][0]
-    assert "amr-tpu-standalone" in prefix
+    assert "amr-standalone" in prefix
 
 
 def zlib_crc():
@@ -76,7 +76,7 @@ def zlib_crc():
 def test_standalone_reuses_extracted_prefix(artifact, tmp_path):
     first = _run(artifact, tmp_path)
     assert first.returncode == 0, first.stderr
-    cache = tmp_path / ".cache" / "amr-tpu-standalone"
+    cache = tmp_path / ".cache" / "amr-standalone"
     entries = sorted(os.listdir(cache))
     second = _run(artifact, tmp_path)
     assert second.returncode == 0, second.stderr

@@ -1,14 +1,15 @@
 """Streaming decoder and BER-harness tests."""
 
+import os
 import sys
 
 import numpy as np
 import pytest
 
-from audio_modem_radio_tpu.assembly import AssemblyRegistry
-from audio_modem_radio_tpu.framing import crc32, pack_frame
-from audio_modem_radio_tpu.modem import modulate
-from audio_modem_radio_tpu.streaming import StreamingDecoder
+from audio_modem_radio.assembly import AssemblyRegistry
+from audio_modem_radio.framing import crc32, pack_frame
+from audio_modem_radio.modem import modulate
+from audio_modem_radio.streaming import StreamingDecoder
 
 
 @pytest.fixture
@@ -54,7 +55,7 @@ def test_streaming_deduplicates_overlap(workdir):
 
 
 def test_streaming_resamples(workdir):
-    from audio_modem_radio_tpu.utils.wavio import resample
+    from audio_modem_radio.utils.wavio import resample
 
     data = b"rate mismatch " * 20
     wave48 = resample(_tx(data), 96000, 48000)
@@ -65,7 +66,7 @@ def test_streaming_resamples(workdir):
 
 
 def test_ber_harness(workdir):
-    sys.path.insert(0, "/root/repo/benchmarks")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmarks"))
     try:
         from ber import measure_mode
     finally:

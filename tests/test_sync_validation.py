@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from audio_modem_radio_tpu.framing import MAGIC, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
-from audio_modem_radio_tpu.ops.common import (
+from audio_modem_radio.framing import MAGIC, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+from audio_modem_radio.ops.common import (
     _GRAY_HI,
     _GRAY_LO,
     dibit_sync_and_pack_rotations,
@@ -81,21 +81,21 @@ def test_clean_unrotated_with_decoy_still_syncs(rng):
 
 
 @pytest.mark.parametrize("k_true", [0, 2])
-def test_pallas_matcher_validates(k_true, rng):
-    """The Pallas matcher's tolerant second stage rejects the decoy too."""
-    from audio_modem_radio_tpu.ops.pallas_kernels import rotation_match_batch
+def test_batched_tail_validates(k_true, rng):
+    """The batched dibit tail's tolerant second stage rejects the decoy too:
+    its bytes equal the plain reference's and start at the TRUE magic."""
+    import plain_reference as ref
+    from audio_modem_radio.parallel.batch import _dibit_sync_tail
 
-    r = 256
-    hi, lo, true_pos = _build_stream(k_true, with_decoy=True, n_dib=r * 128, seed=3)
-    first, found8 = rotation_match_batch(
-        jnp.asarray(hi.reshape(1, r, 128)), jnp.asarray(lo.reshape(1, r, 128)),
-        MAGIC_BIT_PATTERN, r, interpret=True, pattern2=MAGIC_BIT_PATTERN2,
+    hi, lo, true_pos = _build_stream(k_true, with_decoy=True, n_dib=256 * 128, seed=3)
+    packed, n_valid, found = _dibit_sync_tail(
+        jnp.asarray(hi[None]), jnp.asarray(lo[None]), True
     )
-    first, found8 = np.asarray(first), np.asarray(found8)
-    # Hypothesis k_true (even parity) must point at the TRUE position, not
-    # the decoy at 500.
-    assert found8[0, k_true]
-    assert first[0, k_true] == true_pos
+    raw = np.asarray(packed[0])[: int(n_valid[0])].tobytes()
+    want, want_found = ref.dibit_sync(hi, lo)
+    assert bool(found[0]) and want_found and raw == want
+    assert raw.startswith(MAGIC)
+    assert len(raw) == (2 * (len(hi) - true_pos)) // 8
 
 
 def test_pattern_find_on_stream_shorter_than_pattern():
@@ -104,8 +104,8 @@ def test_pattern_find_on_stream_shorter_than_pattern():
     not-found, both with and without the validation window."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
-    from audio_modem_radio_tpu.ops.common import (
+    from audio_modem_radio.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+    from audio_modem_radio.ops.common import (
         find_bit_pattern,
         find_bit_pattern_validated,
     )
@@ -128,8 +128,8 @@ def test_short_stream_validates_against_pattern2_prefix():
     (tol scaled down) rather than silently accept unvalidated matches."""
     import jax.numpy as jnp
 
-    from audio_modem_radio_tpu.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
-    from audio_modem_radio_tpu.ops.common import find_bit_pattern_validated
+    from audio_modem_radio.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+    from audio_modem_radio.ops.common import find_bit_pattern_validated
 
     prefix = [int(c) for c in MAGIC_BIT_PATTERN2[:6]]
     good = jnp.asarray([int(c) for c in MAGIC_BIT_PATTERN] + prefix, jnp.uint8)

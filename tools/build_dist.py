@@ -3,11 +3,11 @@
 The reference ships PyInstaller one-file executables
 (/root/reference/build.spec:5-65). The modern Python analogs here:
 
-* a wheel (``pip wheel``) with console scripts ``amr-tpu`` / ``amr-tpu-app``
-  / ``amr-tpu-tui`` / ``amr-tpu-gui`` and the NEURAL codebook bundled as
+* a wheel (``pip wheel``) with console scripts ``amr`` / ``amr-app``
+  / ``amr-tui`` / ``amr-gui`` and the NEURAL codebook bundled as
   package data, and
-* a stdlib ``zipapp`` one-file executable ``amr-tpu.pyz`` (runs with any
-  Python that has the jax/numpy runtime installed: ``python amr-tpu.pyz
+* a stdlib ``zipapp`` one-file executable ``amr.pyz`` (runs with any
+  Python that has the jax/numpy runtime installed: ``python amr.pyz
   encode-file ...``).
 
 Usage::
@@ -39,15 +39,15 @@ def build_wheel(out_dir: str) -> str:
 
 
 def build_pyz(out_dir: str) -> str:
-    target = os.path.join(out_dir, "amr-tpu.pyz")
+    target = os.path.join(out_dir, "amr.pyz")
     with tempfile.TemporaryDirectory() as stage:
         shutil.copytree(
-            os.path.join(REPO, "audio_modem_radio_tpu"),
-            os.path.join(stage, "audio_modem_radio_tpu"),
+            os.path.join(REPO, "audio_modem_radio"),
+            os.path.join(stage, "audio_modem_radio"),
             ignore=shutil.ignore_patterns("__pycache__"),
         )
         with open(os.path.join(stage, "__main__.py"), "w") as f:
-            f.write("from audio_modem_radio_tpu.cli import main\n"
+            f.write("from audio_modem_radio.cli import main\n"
                     "import sys\n"
                     "sys.exit(main())\n")
         zipapp.create_archive(stage, target, interpreter="/usr/bin/env python3")

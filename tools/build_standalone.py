@@ -1,4 +1,4 @@
-"""Build a fully self-contained one-file executable: ``amr-tpu.run``.
+"""Build a fully self-contained one-file executable: ``amr.run``.
 
 The reference ships PyInstaller one-file executables that bundle the whole
 Python runtime (/root/reference/build.spec:5-65, FileBeepAdvanced.spec:6-10).
@@ -16,8 +16,8 @@ Mechanics (the makeself pattern, stdlib-only):
   (``bin/python3.x``, ``lib/libpython*.so*`` + non-glibc shared-library
   closure, ``lib/python3.x/`` stdlib, ``lib/python3.x/site-packages/`` with
   the dependency set and the package).
-* first run extracts to ``~/.cache/amr-tpu-standalone/<sha256[:16]>`` (or
-  ``$AMR_TPU_HOME``); later runs reuse the extracted tree (the digest keys
+* first run extracts to ``~/.cache/amr-standalone/<sha256[:16]>`` (or
+  ``$AMR_HOME``); later runs reuse the extracted tree (the digest keys
   the cache, so upgraded artifacts never collide).
 * the launcher ``exec``s the bundled interpreter on the chosen entry module
   with ``PYTHONHOME``/``LD_LIBRARY_PATH`` pointing into the prefix. CPython
@@ -51,7 +51,7 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Hard runtime closure of audio_modem_radio_tpu (everything else is a lazy,
+# Hard runtime closure of audio_modem_radio (everything else is a lazy,
 # gated import with a working fallback — see COMPAT.md "optional extras").
 DEFAULT_DEPS = (
     "jax",
@@ -72,14 +72,14 @@ _GLIBC = (
 )
 
 _LAUNCHER = """#!/bin/sh
-# amr-tpu standalone executable (self-extracting; built by
+# amr standalone executable (self-extracting; built by
 # tools/build_standalone.py). Everything after __ARCHIVE__ is a tar.gz
 # prefix with a bundled CPython + jax runtime.
 set -e
 SUM=%(digest)s
 PYBIN=%(pybin)s
 ENTRY=%(entry)s
-BASE="${AMR_TPU_HOME:-${XDG_CACHE_HOME:-$HOME/.cache}/amr-tpu-standalone}"
+BASE="${AMR_HOME:-${XDG_CACHE_HOME:-$HOME/.cache}/amr-standalone}"
 DIR="$BASE/$SUM"
 if [ ! -x "$DIR/bin/$PYBIN" ]; then
     TMP="$BASE/.extract.$$"
@@ -196,8 +196,8 @@ def _copy_app(stage: str) -> None:
     sp = os.path.join(stage, "lib", short, "site-packages")
     os.makedirs(sp, exist_ok=True)
     shutil.copytree(
-        os.path.join(REPO, "audio_modem_radio_tpu"),
-        os.path.join(sp, "audio_modem_radio_tpu"),
+        os.path.join(REPO, "audio_modem_radio"),
+        os.path.join(sp, "audio_modem_radio"),
         ignore=_ignore(), symlinks=False,
     )
     # native.py resolves <package parent>/native/{amr_native.cpp,libamr_native.so};
@@ -215,7 +215,7 @@ def _copy_app(stage: str) -> None:
 def build_standalone(
     out_path: str,
     deps=DEFAULT_DEPS,
-    entry: str = "audio_modem_radio_tpu.cli",
+    entry: str = "audio_modem_radio.cli",
     include_app: bool = True,
     stage_hook=None,
     level: int = 6,
@@ -266,12 +266,12 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "dist"))
     ap.add_argument("--deps", default=",".join(DEFAULT_DEPS),
                     help="comma-separated site-packages distributions to bundle")
-    ap.add_argument("--entry", default="audio_modem_radio_tpu.cli")
+    ap.add_argument("--entry", default="audio_modem_radio.cli")
     ap.add_argument("--level", type=int, default=6, help="gzip level (1-9)")
     args = ap.parse_args()
 
     os.makedirs(args.out, exist_ok=True)
-    out_path = os.path.join(args.out, "amr-tpu.run")
+    out_path = os.path.join(args.out, "amr.run")
     deps = [d for d in args.deps.split(",") if d]
     build_standalone(out_path, deps=deps, entry=args.entry, level=args.level)
     size = os.path.getsize(out_path)
